@@ -7,8 +7,8 @@
  * iterative radix-2 FFT; power-of-two sizes only (leanmlmrx defaults
  * to N=64 and the golden tests control N).
  */
-#ifndef LEANSDR_TPU_FFTW_SHIM_H
-#define LEANSDR_TPU_FFTW_SHIM_H
+#ifndef LEANSDR_JAX_FFTW_SHIM_H
+#define LEANSDR_JAX_FFTW_SHIM_H
 
 #include <stddef.h>
 #include <stdio.h>   /* the real fftw3.h includes it; sources rely on it */

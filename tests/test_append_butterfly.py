@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from leansdr_tpu.fec.deconv_device import (DELTA_MAX, deconv_append,
+from leansdr_jax.fec.deconv_device import (DELTA_MAX, deconv_append,
                                            make_plan)
 
 

@@ -5,7 +5,7 @@ decimation phase, per-channel parity."""
 import numpy as np
 import pytest
 
-from leansdr_tpu.dsp import blocks, blocks_device
+from leansdr_jax.dsp import blocks, blocks_device
 
 
 def _streams(C, n, seed=0, tones=None):
@@ -86,9 +86,9 @@ def test_batched_fir_matches_host():
 def test_multi_rx_taps_and_spectrum():
     """MultiDvbsReceiver with cnr/spectrum taps enabled still decodes and
     produces per-channel metrics."""
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx
-    from leansdr_tpu.pipelines.dvbs_rx import RxConfig
-    from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver
+    from leansdr_jax.pipelines import tsgen, dvbs_tx
+    from leansdr_jax.pipelines.dvbs_rx import RxConfig
+    from leansdr_jax.pipelines.multi_rx import MultiDvbsReceiver
     nchan = 2
     iqs, payloads = [], []
     for c in range(nchan):

@@ -1,7 +1,7 @@
 """Device-resident deconvolution (fec/deconv_device.py) ground truth.
 
 Mirrors the identity check of test_deconv_inverts_encoder but through the
-fused device path: compaction ring + MXU GF(2) convolution + hypothesis
+fused device path: compaction ring + GF(2) convolution + hypothesis
 election must invert the TX encoder for every rate, under channel
 rotations/conjugation (sync hypotheses) and symbol slips (alignment
 hypotheses), with channels exercising different impairments in one batch.
@@ -10,8 +10,8 @@ hypotheses), with channels exercising different impairments in one batch.
 import numpy as np
 import pytest
 
-from leansdr_tpu.fec import convenc, deconv
-from leansdr_tpu.fec.deconv_device import DeviceDeconvolver
+from leansdr_jax.fec import convenc, deconv
+from leansdr_jax.fec.deconv_device import DeviceDeconvolver
 
 import jax.numpy as jnp
 
@@ -125,7 +125,7 @@ def test_append_drift_guard_protects_leaders():
     """A channel whose fill lags the fleet by more than DELTA_MAX must
     not corrupt the in-window channels' ring contents (the laggard is
     dragged forward with a documented stream discontinuity)."""
-    from leansdr_tpu.fec.deconv_device import (DELTA_MAX, deconv_append,
+    from leansdr_jax.fec.deconv_device import (DELTA_MAX, deconv_append,
                                                make_plan)
     rng = np.random.default_rng(3)
     C, n = 3, 512

@@ -15,10 +15,10 @@ collapse that lands between its subsampled discriminant points.
 import numpy as np
 import jax.numpy as jnp
 
-from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
-from leansdr_tpu.fec import convenc, deconv
-from leansdr_tpu.fec import viterbi as vit
-from leansdr_tpu.fec.viterbi_device import P_SUB, MultiViterbiSync
+from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
+from leansdr_jax.fec import convenc, deconv
+from leansdr_jax.fec import viterbi as vit
+from leansdr_jax.fec.viterbi_device import P_SUB, MultiViterbiSync
 
 # Documented transient bound, in BYTES, for a rate-1/2 polarity flip
 # within one decode call: the device re-elects at the next P_SUB
@@ -243,8 +243,8 @@ def test_deconv_election_flip_bounded_transient():
     mid-stream phase slip: byte streams equal the host
     BatchedDeconvolSync outside the documented window (device elects per
     P_sub periods vs the host's per ~4096-symbol block)."""
-    from leansdr_tpu.fec.deconv import BatchedDeconvolSync
-    from leansdr_tpu.fec.deconv_device import DeviceDeconvolver
+    from leansdr_jax.fec.deconv import BatchedDeconvolSync
+    from leansdr_jax.fec.deconv_device import DeviceDeconvolver
 
     rate = "1/2"
     maps = deconv.sync_maps()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from leansdr_tpu.fec import prbs, rs, interleave, convenc, deconv
+from leansdr_jax.fec import prbs, rs, interleave, convenc, deconv
 
 
 def test_prbs_pattern_basics():

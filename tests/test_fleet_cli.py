@@ -13,7 +13,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_fleet_cli_decodes_all_channels(tmp_path):
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx
+    from leansdr_jax.pipelines import tsgen, dvbs_tx
 
     nchan = 3
     payloads, iqs = [], []
@@ -27,7 +27,7 @@ def test_fleet_cli_decodes_all_channels(tmp_path):
     frames = x.transpose(1, 0, 2).astype(np.float32)  # [n, C, 2]
 
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leandvbfleet",
+        [sys.executable, "-m", "leansdr_jax.apps.leandvbfleet",
          "--nchan", str(nchan), "--f32", "--float-scale", "75",
          "-f", "4e6", "--sr", "2e6", "--cr", "1/2", "--fastlock",
          "--chunk", "16384"],
@@ -57,7 +57,7 @@ def test_fleet_cli_decodes_all_channels(tmp_path):
 
 
 def test_fleet_cli_viterbi(tmp_path):
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx
+    from leansdr_jax.pipelines import tsgen, dvbs_tx
 
     nchan = 2
     payloads, iqs = [], []
@@ -71,7 +71,7 @@ def test_fleet_cli_viterbi(tmp_path):
 
     out_tpl = str(tmp_path / "ch_%d.ts")
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leandvbfleet",
+        [sys.executable, "-m", "leansdr_jax.apps.leandvbfleet",
          "--nchan", str(nchan), "--f32", "--float-scale", "75",
          "-f", "4e6", "--sr", "2e6", "--cr", "1/2", "--fastlock",
          "--viterbi", "--chunk", "16384", "--out-template", out_tpl],

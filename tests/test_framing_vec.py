@@ -10,9 +10,9 @@ timeouts and resync phases.
 import numpy as np
 import pytest
 
-from leansdr_tpu.proto.framing import (MpegSync, RS_SIZE, MPEG_SYNC,
+from leansdr_jax.proto.framing import (MpegSync, RS_SIZE, MPEG_SYNC,
                                        MPEG_SYNC_INV, bitshift_stream)
-from leansdr_tpu.fec import prbs
+from leansdr_jax.fec import prbs
 
 
 def seq_run_decoding(sync: MpegSync, data: np.ndarray):

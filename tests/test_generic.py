@@ -3,7 +3,7 @@ the PMP zero-copy descriptor wire format, P8)."""
 
 import numpy as np
 
-from leansdr_tpu.core.generic import (ItemCounter, RateEstimator,
+from leansdr_jax.core.generic import (ItemCounter, RateEstimator,
                                       decimate, serialize)
 
 
@@ -33,7 +33,7 @@ def test_rate_estimator_window():
 
 
 def test_pmp_descriptor_roundtrip():
-    from leansdr_tpu.util import pmp
+    from leansdr_jax.util import pmp
     d = pmp.PmpDescriptor(physaddr=0x1234_5678_9ABC, size=65536,
                           canary=0xDEAD).pack()
     assert len(d) == pmp.DESC_SIZE

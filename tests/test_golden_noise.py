@@ -31,8 +31,8 @@ import sys
 import numpy as np
 import pytest
 
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.util.iofmt import write_iq
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.util.iofmt import write_iq
 
 
 from conftest import file_stdin as _file_stdin
@@ -50,7 +50,7 @@ def _run_ref(ref_apps, raw, extra=()):
 def _run_ours(raw, extra=()):
     with _file_stdin(raw) as f:
         r = subprocess.run(
-            [sys.executable, "-m", "leansdr_tpu.apps.leandvb", "--f32",
+            [sys.executable, "-m", "leansdr_jax.apps.leandvb", "--f32",
              "--float-scale", "75", "-f", "4e6", "--sr", "2e6", "--cr",
              "1/2", "--fastlock", *extra],
             stdin=f, capture_output=True, check=True)
@@ -68,7 +68,7 @@ def _match(pkts, ts):
 
 def _noisy(raw, awgn):
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leanchansim", "--if32",
+        [sys.executable, "-m", "leansdr_jax.apps.leanchansim", "--if32",
          "--of32", "--awgn", str(awgn), "--deterministic"],
         input=raw, capture_output=True, check=True)
     return r.stdout

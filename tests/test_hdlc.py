@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from leansdr_tpu.proto.hdlc import (HdlcDec, HdlcSync, etr192_descramble,
+from leansdr_jax.proto.hdlc import (HdlcDec, HdlcSync, etr192_descramble,
                                     etr192_scramble, CRC16_INIT, CRC16_POLY)
 
 

@@ -4,7 +4,7 @@ import io
 
 import numpy as np
 
-from leansdr_tpu.util.ingest import DeviceFeeder, read_chunks
+from leansdr_jax.util.ingest import DeviceFeeder, read_chunks
 
 
 def test_device_feeder_order_and_contents():

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from leansdr_tpu.pipelines.mlm_rx import (MlmReceiver, MlmConfig, Channel,
+from leansdr_jax.pipelines.mlm_rx import (MlmReceiver, MlmConfig, Channel,
                                           resolve_rates)
 
 
@@ -78,7 +78,7 @@ def test_mlmrx_golden_vs_reference_binary(ref_mlmrx):
     r_ref = subprocess.run([str(ref_mlmrx)] + args, input=iq.tobytes(),
                            capture_output=True, check=True)
     r_our = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leanmlmrx"] + args,
+        [sys.executable, "-m", "leansdr_jax.apps.leanmlmrx"] + args,
         input=iq.tobytes(), capture_output=True, check=True)
     a = np.frombuffer(r_ref.stdout, np.int8).astype(np.float32)
     b = np.frombuffer(r_our.stdout, np.int8).astype(np.float32)

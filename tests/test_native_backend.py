@@ -1,4 +1,4 @@
-"""Parity tests: the C++ byte backend (leansdr_tpu/native) vs the Python
+"""Parity tests: the C++ byte backend (leansdr_jax/native) vs the Python
 fleet backend (pipelines/multi_rx._ByteBackend) on identical streams.
 
 The Python path is the behavioral reference (itself golden-tested against
@@ -10,11 +10,11 @@ shifts, RS correction/failure and derandomizer resync.
 import numpy as np
 import pytest
 
-from leansdr_tpu.pipelines import tsgen
-from leansdr_tpu.fec import rs, interleave, prbs
-from leansdr_tpu.pipelines.multi_rx import _ByteBackend
+from leansdr_jax.pipelines import tsgen
+from leansdr_jax.fec import rs, interleave, prbs
+from leansdr_jax.pipelines.multi_rx import _ByteBackend
 
-native = pytest.importorskip("leansdr_tpu.native")
+native = pytest.importorskip("leansdr_jax.native")
 if native.get_lib() is None:
     import shutil
     if shutil.which("g++"):

@@ -17,8 +17,8 @@ import sys
 import numpy as np
 
 from conftest import file_stdin
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.util.iofmt import write_iq
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.util.iofmt import write_iq
 
 
 def _glyph_counts(stderr: bytes):
@@ -54,7 +54,7 @@ def test_rs_glyphs_golden(ref_apps):
                            stdin=f, capture_output=True, check=True)
     with file_stdin(raw) as f:
         o = subprocess.run(
-            [sys.executable, "-m", "leansdr_tpu.apps.leandvb",
+            [sys.executable, "-m", "leansdr_jax.apps.leandvb",
              "--float-scale", "1", *args],
             stdin=f, capture_output=True, check=True)
     cr, co = _glyph_counts(r.stderr), _glyph_counts(o.stderr)
@@ -97,7 +97,7 @@ def test_fd_pp_golden(ref_apps, tmp_path):
         return np.fromfile(out, np.float32)
 
     ref = run([str(ref_apps / "leandvb")])
-    ours = run([sys.executable, "-m", "leansdr_tpu.apps.leandvb"],
+    ours = run([sys.executable, "-m", "leansdr_jax.apps.leandvb"],
                ("--float-scale", "1"))
     n = min(len(ref), len(ours))
     assert n > 100_000
@@ -107,13 +107,13 @@ def test_fd_pp_golden(ref_apps, tmp_path):
 
 def test_version_and_duration():
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leandvb", "--version"],
+        [sys.executable, "-m", "leansdr_jax.apps.leandvb", "--version"],
         capture_output=True, text=True)
-    assert r.returncode == 0 and r.stdout.startswith("leansdr-tpu-")
+    assert r.returncode == 0 and r.stdout.startswith("leansdr-jax-")
     # --duration accepted (GUI timeline width, leandvb.cc:1176): parse
     # must not fail; feed empty stdin so the run exits immediately.
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leandvb", "--duration",
+        [sys.executable, "-m", "leansdr_jax.apps.leandvb", "--duration",
          "30", "--f32"],
         input=b"", capture_output=True)
     assert r.returncode == 0, r.stderr[-300:]

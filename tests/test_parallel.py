@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from leansdr_tpu.dsp import receiver
-from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
-from leansdr_tpu.parallel import mesh as pmesh
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.pipelines.dvbs_rx import RxConfig
-from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver
+from leansdr_jax.dsp import receiver
+from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
+from leansdr_jax.parallel import mesh as pmesh
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.pipelines.dvbs_rx import RxConfig
+from leansdr_jax.pipelines.multi_rx import MultiDvbsReceiver
 
 
 def _stimulus(nchan, npackets=150, seed0=0, rate="1/2"):
@@ -72,7 +72,7 @@ def test_sharded_demod_matches_single_device():
     # channel demodulates VALIDLY: near-zero algebraic deconvolution
     # errors for the best sync hypothesis in steady state, and symbol
     # counts matching the unsharded run closely.
-    from leansdr_tpu.fec import deconv
+    from leansdr_jax.fec import deconv
     v1 = np.asarray(out1["valid"]).sum(axis=1)
     v2 = np.asarray(out2["valid"]).sum(axis=1)
     assert (np.abs(v1 - v2) <= 0.01 * v1).all()
@@ -89,8 +89,8 @@ def test_sharded_demod_matches_single_device():
 def test_time_sharded_fir_halo_exchange():
     """Overlap-save FIR over the time axis with ppermute halos must equal
     the unsharded causal convolution."""
-    from leansdr_tpu.parallel import halo
-    from leansdr_tpu.dsp import filtergen
+    from leansdr_jax.parallel import halo
+    from leansdr_jax.dsp import filtergen
     rng = np.random.default_rng(0)
     n = 8 * 4096
     x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
@@ -109,7 +109,7 @@ def test_candidate_scan_elects_true_config_grid():
     sweep) races as ONE device batch — distinct symbol rates on the
     channel axis, one byte chain per candidate — and the true config
     wins by the reference's output-production rule."""
-    from leansdr_tpu.pipelines.scan_rx import CandidateScanReceiver
+    from leansdr_jax.pipelines.scan_rx import CandidateScanReceiver
     pkts = tsgen.generate(300)
     # True signal: 2 Msym/s at 4 Msps, rate 3/4.
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate="3/4", interp=2)) * 75.0
@@ -130,16 +130,16 @@ def test_candidate_scan_elects_true_config_grid():
 
 
 def test_multi_channel_viterbi_decodes_all():
-    """cfg.viterbi=True must route through the device Pallas/interpret
-    ACS bank (MultiViterbiSync), not fall back to algebraic
-    deconvolution, and still decode every channel's TS."""
+    """cfg.viterbi=True must route through the device fleet Viterbi
+    (MultiViterbiSync), not fall back to algebraic deconvolution, and
+    still decode every channel's TS."""
     nchan = 3
     x, payloads = _stimulus(nchan, npackets=150)
     rx = MultiDvbsReceiver(
         RxConfig(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True,
                  float_scale=75.0, exact_lut=False, viterbi=True),
         nchan, use_pallas=False)
-    from leansdr_tpu.fec.viterbi_device import MultiViterbiSync
+    from leansdr_jax.fec.viterbi_device import MultiViterbiSync
     assert isinstance(rx.deconv, MultiViterbiSync)
     outs = [np.empty((0, 188), np.uint8)] * nchan
     for i in range(0, x.shape[1], 1 << 16):
@@ -212,7 +212,7 @@ def test_multi_channel_pipelined_submit_matches_process():
 def test_multi_channel_punctured_rates(rate):
     """The batched deconvolver must handle punctured rates (multiple
     deconvolution polynomials per puncturing period)."""
-    from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver
+    from leansdr_jax.pipelines.multi_rx import MultiDvbsReceiver
     nchan = 2
     x, payloads = _stimulus(nchan, npackets=260, rate=rate)
     rx = MultiDvbsReceiver(
@@ -235,7 +235,7 @@ def test_time_sharded_ring_demod_exact_state_handoff():
     superstep. The recurrence must be honored EXACTLY: symbols identical
     to the unsharded batched run (exact_lut deterministic path)."""
     import jax.numpy as jnp
-    from leansdr_tpu.parallel import halo, timeshard
+    from leansdr_jax.parallel import halo, timeshard
 
     D = 8
     x, _ = _stimulus(D, npackets=40)

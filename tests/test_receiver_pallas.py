@@ -1,12 +1,13 @@
-"""Pallas demod kernel vs the XLA scan path (interpret mode on CPU)."""
+"""Pallas demod kernel vs the XLA scan path (interpret mode on CPU):
+bit-identical symbols, costs and emission pattern."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from leansdr_tpu.dsp import receiver, receiver_pallas as rp
-from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
+from leansdr_jax.dsp import receiver, receiver_pallas as rp
+from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
+from leansdr_jax.pipelines import tsgen, dvbs_tx
 
 
 def test_kernel_matches_scan_path():
@@ -73,7 +74,7 @@ def test_kernel_matches_scan_path_huge_amplitudes():
     (Predef.APSK16, "3/4", 16),
 ])
 def test_kernel_matches_scan_path_nonqpsk(predef, cr, nsym):
-    """The generic constellation branch of the Mosaic kernel (the
+    """The generic constellation branch of the demod kernel (the
     nsym-way argmin sweep, receiver_pallas.py) vs the XLA scan path:
     same symbols/costs/valid pattern for 8PSK and 16APSK."""
     rng = np.random.default_rng(5)

@@ -7,9 +7,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.pipelines.dvbs_rx import DvbsReceiver, RxConfig
-from leansdr_tpu.util.iofmt import write_iq
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+from leansdr_jax.util.iofmt import write_iq
 
 
 def _decode_stream(rx, iq, chunk=1 << 16):
@@ -81,8 +81,8 @@ def test_coarse_carrier_acquisition_beyond_pll_range():
     """The FFT coarse search must recover a frequency offset far outside
     the PLL capture range, and seeding Ftune with it must let the
     receiver lock (the additive acquisition accelerator)."""
-    from leansdr_tpu.dsp.acquisition import coarse_carrier_estimate
-    from leansdr_tpu.dsp.blocks import Rotator
+    from leansdr_jax.dsp.acquisition import coarse_carrier_estimate
+    from leansdr_jax.dsp.blocks import Rotator
 
     pkts = tsgen.generate(160)
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate="1/2", interp=2))
@@ -155,23 +155,25 @@ def test_fast_rrc_mf_prefilter_decodes():
     assert (m >= 0).sum() >= 100, (m >= 0).sum()
 
 
-def test_cli_reaches_mosaic_kernel_on_tpu(monkeypatch):
-    """The production CLI surface must select the Pallas kernel on a TPU
-    backend — both the default config and --hq (VERDICT r1 item 3)."""
+def test_cli_reaches_demod_kernel_on_gpu(monkeypatch):
+    """The production CLI surface must select the compiled demod kernel
+    (not interpreted) on a GPU backend — both the default config and
+    --hq (VERDICT r1 item 3)."""
     import jax
-    from leansdr_tpu.apps.leandvb import parse_args
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    from leansdr_jax.apps.leandvb import parse_args
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
 
     cfg, _ = parse_args(["--f32", "-f", "4e6", "--sr", "2e6",
                          "--fastlock", "--anf", "0"])
-    assert DvbsReceiver(cfg).use_pallas
+    rx = DvbsReceiver(cfg)
+    assert rx.use_pallas and not rx._interpret
 
     cfg, _ = parse_args(["--f32", "-f", "4e6", "--sr", "2e6",
                          "--hq", "--anf", "0"])
     rx = DvbsReceiver(cfg)
     assert rx.use_pallas and rx.mf_taps is not None
 
-    # --exact-lut forces the bit-exact scan path even on TPU.
+    # --exact-lut forces the bit-exact scan path even on the GPU.
     cfg, _ = parse_args(["--f32", "-f", "4e6", "--sr", "2e6",
                          "--exact-lut", "--anf", "0"])
     assert not DvbsReceiver(cfg).use_pallas
@@ -180,7 +182,7 @@ def test_cli_reaches_mosaic_kernel_on_tpu(monkeypatch):
 def _hs_stimulus(npk=240):
     """u8-quantized stimulus for the --hs integer path (the CLI recipe:
     leandvbtx --power 37.5 --agc -> chansim --ou8 -> leandvb --u8 --hs)."""
-    from leansdr_tpu.util.iofmt import read_iq
+    from leansdr_jax.util.iofmt import read_iq
     pkts = tsgen.generate(npk)
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(
         amp=dvbs_tx.power_to_amp(37.5), agc=True, interp=2))

@@ -10,8 +10,8 @@ import sys
 import numpy as np
 
 from conftest import file_stdin
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.util.iofmt import write_iq
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.util.iofmt import write_iq
 
 
 def test_device_scan_elects_and_decodes():
@@ -20,9 +20,9 @@ def test_device_scan_elects_and_decodes():
     pkts = tsgen.generate(260)
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate="3/4", interp=4))
     raw = write_iq(iq, "f32")
-    cmd = [sys.executable, "-m", "leansdr_tpu.apps.leansdrscan",
+    cmd = [sys.executable, "-m", "leansdr_jax.apps.leansdrscan",
            "--device", "--rewind", "-t", "600",
-           sys.executable, "-m", "leansdr_tpu.apps.leandvb",
+           sys.executable, "-m", "leansdr_jax.apps.leandvb",
            "--f32", "--float-scale", "75", "-f", "6e6",
            "--sr", "1e6,1.5e6,2e6", "--cr", "1/2,3/4,7/8",
            "--anf", "0", "--fastlock"]
@@ -49,9 +49,9 @@ def test_device_scan_live_inprocess_handoff():
     pkts = tsgen.generate(260)
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate="3/4", interp=4))
     raw = write_iq(iq, "f32")
-    cmd = [sys.executable, "-m", "leansdr_tpu.apps.leansdrscan",
+    cmd = [sys.executable, "-m", "leansdr_jax.apps.leansdrscan",
            "--device", "-t", "600",
-           sys.executable, "-m", "leansdr_tpu.apps.leandvb",
+           sys.executable, "-m", "leansdr_jax.apps.leandvb",
            "--f32", "--float-scale", "75", "-f", "6e6",
            "--sr", "1e6,1.5e6", "--cr", "1/2,3/4",
            "--anf", "0", "--fastlock"]
@@ -69,7 +69,7 @@ def test_device_scan_live_inprocess_handoff():
 
 def test_device_scan_rejects_other_sweeps():
     r = subprocess.run(
-        [sys.executable, "-m", "leansdr_tpu.apps.leansdrscan",
+        [sys.executable, "-m", "leansdr_jax.apps.leansdrscan",
          "--device", "cat", "--foo", "a,b"],
         input=b"", capture_output=True)
     assert r.returncode == 1

@@ -5,9 +5,9 @@ exits hard on overflow; we must neither grow nor stall)."""
 
 import numpy as np
 
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.pipelines.dvbs_rx import RxConfig
-from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.pipelines.dvbs_rx import RxConfig
+from leansdr_jax.pipelines.multi_rx import MultiDvbsReceiver
 
 
 def test_fleet_soak_bounded_and_flowing():

@@ -5,8 +5,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from leansdr_tpu.pipelines import tsgen, dvbs_tx
-from leansdr_tpu.util.iofmt import read_iq
+from leansdr_jax.pipelines import tsgen, dvbs_tx
+from leansdr_jax.util.iofmt import read_iq
 
 
 def test_tsgen_matches_reference(ref_apps, golden_dir):
@@ -34,10 +34,10 @@ def test_tx_iq_matches_reference(ref_apps, golden_dir, interp, rate):
 
 
 def test_device_modulator_matches_host():
-    """The all-device jitted TX (MXU RS encode, shifted-lane convolution,
+    """The all-device jitted TX (matmul RS encode, shifted-lane convolution,
     polyphase RRC) must match the host chain (itself golden vs the
     reference binary) at float tolerance."""
-    from leansdr_tpu.pipelines.dvbs_tx_device import DeviceModulator
+    from leansdr_jax.pipelines.dvbs_tx_device import DeviceModulator
     pkts = tsgen.generate(60)
     host = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate="1/2", interp=2))
     dev = DeviceModulator(rate="1/2", interp=2)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from leansdr_tpu.fec import convenc
-from leansdr_tpu.fec.viterbi import (make_trellis, ViterbiBank, ViterbiSync,
+from leansdr_jax.fec import convenc
+from leansdr_jax.fec.viterbi import (make_trellis, ViterbiBank, ViterbiSync,
                                      make_sync_maps, NSTATES)
-from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
+from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
 
 
 @pytest.mark.parametrize("rate", ["1/2", "3/4", "5/6", "7/8", "4/6"])
@@ -56,7 +56,7 @@ def test_device_bank_matches_host_bank():
     """The device ACS scan must produce the same outputs as the NumPy
     bank for identical inputs."""
     import jax.numpy as jnp
-    from leansdr_tpu.fec.viterbi import _viterbi_chunk_device
+    from leansdr_jax.fec.viterbi import _viterbi_chunk_device
     rate = "3/4"
     rng = np.random.default_rng(2)
     t = make_trellis(rate)

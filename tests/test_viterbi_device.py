@@ -5,42 +5,58 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
-from leansdr_tpu.fec import viterbi as vit
-from leansdr_tpu.fec.viterbi_device import (
-    NSYNCS, P_SUB, MultiViterbiSync, ViterbiPlan, viterbi_acs)
+from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
+from leansdr_jax.fec import viterbi as vit
+from leansdr_jax.fec.viterbi_acs import acs_geometry, viterbi_acs
+from leansdr_jax.fec.viterbi_device import (
+    P_SUB, MultiViterbiSync, _block_inputs, _block_inputs_tracked)
 
 
-def test_acs_kernel_matches_host_bank():
-    """Kernel ACS == ViterbiBank.update bit-for-bit (metrics, paths,
-    decoded symbols, discriminants), including tie cases (small integer
-    costs make metric ties frequent)."""
-    rate = "1/2"
-    T = P_SUB
-    N = 128                     # one lane register
-    rng = np.random.default_rng(7)
-    cs = rng.integers(0, 4, (T, N)).astype(np.int32)
-    cost = -rng.integers(0, 4, (T, N)).astype(np.int32)   # ties likely
-
-    m, p, us, q = viterbi_acs(rate, jnp.zeros((64, N), jnp.int32),
-                              jnp.zeros((64, N), jnp.int32),
-                              jnp.asarray(cs), jnp.asarray(cost),
-                              interpret=True)
-    us = np.asarray(us)
-    q = np.asarray(q)
-
-    bank = vit.ViterbiBank(vit.make_trellis(rate), N)
+def _check_acs_vs_bank(rate, T, N, seed, m0=None):
+    """viterbi_acs (interpret) == ViterbiBank.update bit-for-bit:
+    decoded symbols and discriminants every block, then metrics and the
+    register-exchange paths (stored under acs_geometry.order). Coarse
+    costs make metric ties frequent."""
+    geo = acs_geometry(rate)
+    t = vit.make_trellis(rate)
+    rng = np.random.default_rng(seed)
+    cs = rng.integers(0, t.ncs, (T, N)).astype(np.int32)
+    cost = -(rng.integers(0, 4, (T, N)) * 3).astype(np.int32)
+    bank = vit.ViterbiBank(t, N)
+    order = np.asarray(geo.order)
+    z = jnp.zeros((N, 64), jnp.int32)
+    if m0 is not None:
+        bank.cost[:] = m0
+        m_in = jnp.asarray(m0[:, order].astype(np.int32))
+    else:
+        m_in = z
+    m, h, lo, us, q = viterbi_acs(rate, m_in, z, z, jnp.asarray(cs),
+                                  jnp.asarray(cost), interpret=True)
+    us, q = np.asarray(us), np.asarray(q)
     idx = np.arange(N)
-    for t in range(T):
-        bus, bq = bank.update(idx, cs[t].astype(np.int64),
-                              cost[t].astype(np.int64))
-        assert np.array_equal(us[t], bus), f"us mismatch at block {t}"
-        assert np.array_equal(q[t], bq), f"q mismatch at block {t}"
+    for tt in range(T):
+        bus, bq = bank.update(idx, cs[tt].astype(np.int64),
+                              cost[tt].astype(np.int64))
+        assert np.array_equal(us[tt], bus), f"us mismatch at block {tt}"
+        assert np.array_equal(q[tt], bq), f"q mismatch at block {tt}"
     assert np.array_equal(np.asarray(m),
-                          bank.cost.T.astype(np.int32))
-    assert np.array_equal(np.asarray(p).astype(np.uint32),
-                          (bank.path & np.uint64(0xFFFFFFFF)
-                           ).T.astype(np.uint32))
+                          bank.cost[:, order].astype(np.int32))
+    lo64 = np.asarray(lo).astype(np.uint32).astype(np.uint64)
+    if geo.two_words:
+        p64 = (np.asarray(h).astype(np.uint32).astype(np.uint64) << 32) \
+            | lo64
+    else:
+        p64 = lo64
+    nbits, depth = vit.PATH_SPEC[rate]
+    pmask = np.uint64((1 << min(63, nbits * depth)) - 1)
+    assert np.array_equal(p64 & pmask, bank.path[:, order] & pmask)
+
+
+@pytest.mark.parametrize("rate", ["1/2", "4/6", "3/4", "5/6", "7/8"])
+def test_acs_kernel_matches_host_bank(rate):
+    """The one ACS kernel, every rate's trellis geometry (2/3 runs as
+    4/6 on QPSK): bank form for bits_in < 4, expanded form above."""
+    _check_acs_vs_bank(rate, T=256, N=16, seed=7)
 
 
 def test_multi_viterbi_matches_host_sync():
@@ -56,7 +72,7 @@ def test_multi_viterbi_matches_host_sync():
 
     # Clean coded stream: encode random bytes, map to symbols, with a
     # per-channel sync transform so different replicas win.
-    from leansdr_tpu.fec import convenc
+    from leansdr_jax.fec import convenc
     syms = np.zeros((nsamp, C), np.uint8)
     costs = np.full((nsamp, C), -40, np.int16)
     rots = [0, 1, 3]
@@ -91,11 +107,11 @@ def test_multi_viterbi_matches_host_sync():
 
 @pytest.mark.parametrize("rate", ["3/4", "2/3", "5/6"])
 def test_multi_viterbi_all_rates_matches_host(rate):
-    """Punctured rates route to the all-rate XLA-scan ACS
+    """On the CPU the fleet decoder defaults to the all-rate XLA-scan ACS
     (viterbi_decode_xla): byte stream == host ViterbiSync per channel,
     with per-channel sync rotations so different replicas win."""
     cstln = make_dvbs2_constellation(Predef.QPSK, rate)
-    from leansdr_tpu.fec import convenc
+    from leansdr_jax.fec import convenc
     r = "4/6" if rate == "2/3" else rate
     C = 2
     ns = vit.make_sync_maps(cstln, r)[3]
@@ -113,7 +129,7 @@ def test_multi_viterbi_all_rates_matches_host(rate):
         syms[:len(cs), c] = inv[cs]
     valid = np.ones((nsamp, C), bool)
 
-    mv = MultiViterbiSync(cstln, r, C, nsamp, 1.0, interpret=True)
+    mv = MultiViterbiSync(cstln, r, C, nsamp, 1.0)
     assert mv.xla and mv.kind == "viterbi_xla"
     mv.append(jnp.asarray(syms), jnp.asarray(valid), jnp.asarray(costs))
     mv.note_production(nsamp)
@@ -134,14 +150,15 @@ def test_multi_viterbi_all_rates_matches_host(rate):
 
 def test_track_mode_policy_transitions():
     """ACQUIRE->TRACK after a stable election; TRACK->ACQUIRE when the
-    tracked discriminant collapses (the TPU analogue of resync_period,
-    dvb.h:1241)."""
+    tracked discriminant collapses (the device analogue of
+    resync_period, dvb.h:1241)."""
     import numpy as np
-    from leansdr_tpu.dsp.cstln import Predef, make_dvbs2_constellation
-    from leansdr_tpu.fec.viterbi_device import MultiViterbiSync
+    from leansdr_jax.dsp.cstln import Predef, make_dvbs2_constellation
+    from leansdr_jax.fec.viterbi_device import MultiViterbiSync
 
     cstln = make_dvbs2_constellation(Predef.QPSK, "1/2")
-    v = MultiViterbiSync(cstln, "1/2", 2, 1 << 14, 2.0)
+    # TRACK mode belongs to the kernel path (interpret mode here).
+    v = MultiViterbiSync(cstln, "1/2", 2, 1 << 14, 2.0, interpret=True)
     C, E = 2, v.plan.E
     good = np.concatenate(
         [np.full((C, E), 900, np.int32), np.zeros((C, 1), np.int32)],
@@ -161,97 +178,27 @@ def test_track_mode_policy_transitions():
 
 @pytest.mark.parametrize("rate", ["3/4", "7/8", "5/6"])
 def test_banked_acs_matches_host_bank(rate):
-    """Banked punctured-rate kernel (fec/viterbi_banked.py) ==
-    ViterbiBank bit-for-bit — metrics, 64-bit register-exchange paths,
-    decoded symbols, discriminants — with coarse costs forcing ties."""
-    from leansdr_tpu.fec import viterbi_banked as vb
-    geo = vb.bank_geometry(rate)
-    t = vit.make_trellis(rate)
-    T, N = vb.P_SUB, 128
-    rng = np.random.default_rng(11)
-    cs = rng.integers(0, t.ncs, (T, N)).astype(np.int32)
-    cost = -(rng.integers(0, 4, (T, N)) * 3).astype(np.int32)
-
-    m2, h2, l2, us, q = vb.viterbi_acs_banked(
-        rate, jnp.zeros((64, N), jnp.int32),
-        jnp.zeros((64, N), jnp.int32), jnp.zeros((64, N), jnp.int32),
-        jnp.asarray(cs), jnp.asarray(cost), interpret=True)
-    us = np.asarray(us)
-    q = np.asarray(q)
-
-    bank = vit.ViterbiBank(t, N)
-    idx = np.arange(N)
-    for tt in range(T):
-        bus, bq = bank.update(idx, cs[tt].astype(np.int64),
-                              cost[tt].astype(np.int64))
-        assert np.array_equal(us[tt], bus), f"us mismatch at block {tt}"
-        assert np.array_equal(q[tt], bq), f"q mismatch at block {tt}"
-    # Planes are stored under the bank permutation geo.orig.
-    assert np.array_equal(np.asarray(m2),
-                          bank.cost[:, geo.orig].T.astype(np.int32))
-    p64 = ((np.asarray(h2).astype(np.uint32).astype(np.uint64) << 32)
-           | np.asarray(l2).astype(np.uint32))
-    nbits, depth = vit.PATH_SPEC[rate]
-    pmask = np.uint64((1 << min(63, nbits * depth)) - 1)
-    assert np.array_equal(p64 & pmask,
-                          (bank.path[:, geo.orig].T & pmask))
+    """Several programs (24 lanes over 3 lane blocks) entering from
+    non-zero trellis metrics == ViterbiBank bit-for-bit."""
+    m0 = np.random.default_rng(3).integers(0, 40, (24, 64))
+    _check_acs_vs_bank(rate, T=128, N=24, seed=11, m0=m0)
 
 
 def test_banked_acs_rowsplit_matches_host_bank():
-    """Row-split B=7 kernel (states across the lane-halves) ==
-    ViterbiBank bit-for-bit, coarse costs forcing ties; the tiled
-    layout replicates 64 channels into both halves."""
-    from leansdr_tpu.fec import viterbi_banked as vb
-    rate = "7/8"
-    geo = vb.bank_geometry(rate)
-    t = vit.make_trellis(rate)
-    T, C = vb.P_SUB, 64
-    rng = np.random.default_rng(13)
-    cs = rng.integers(0, t.ncs, (T, C)).astype(np.int32)
-    cost = -(rng.integers(0, 4, (T, C)) * 3).astype(np.int32)
-    cs_t = np.tile(cs, (1, 2))
-    cost_t = np.tile(cost, (1, 2))
-
-    m2, h2, l2, us, q = vb.viterbi_acs_banked(
-        rate, jnp.zeros((64, 128), jnp.int32),
-        jnp.zeros((64, 128), jnp.int32), jnp.zeros((64, 128), jnp.int32),
-        jnp.asarray(cs_t), jnp.asarray(cost_t), interpret=True,
-        rowsplit=True)
-    us = np.asarray(us)[:, :C]
-    q = np.asarray(q)[:, :C]
-
-    bank = vit.ViterbiBank(t, C)
-    idx = np.arange(C)
-    for tt in range(T):
-        bus, bq = bank.update(idx, cs[tt].astype(np.int64),
-                              cost[tt].astype(np.int64))
-        assert np.array_equal(us[tt], bus), f"us mismatch at block {tt}"
-        assert np.array_equal(q[tt], bq), f"q mismatch at block {tt}"
-    assert np.array_equal(np.asarray(m2)[:, :C],
-                          bank.cost[:, geo.orig].T.astype(np.int32))
-    # Both lane-halves carry identical unpacked planes.
-    assert np.array_equal(np.asarray(m2)[:, :64], np.asarray(m2)[:, 64:])
-    p64 = ((np.asarray(h2)[:, :C].astype(np.uint32).astype(np.uint64)
-            << 32) | np.asarray(l2)[:, :C].astype(np.uint32))
-    nbits, depth = vit.PATH_SPEC[rate]
-    pmask = np.uint64((1 << min(63, nbits * depth)) - 1)
-    assert np.array_equal(p64 & pmask,
-                          (bank.path[:, geo.orig].T & pmask))
+    """Rate 7/8 (all-pred trellis) at a 64-lane fleet width ==
+    ViterbiBank bit-for-bit, coarse costs forcing ties."""
+    _check_acs_vs_bank("7/8", T=64, N=64, seed=13)
 
 
 def test_rowsplit_track_decode_matches_bank():
-    """TRACK-mode fleet decode through the ROW-SPLIT kernel (7/8 at 40
-    channels: slot 64, channels tiled across the lane-halves) == the
-    host ViterbiBank driven on the tracked block inputs."""
-    from leansdr_tpu.fec.viterbi_device import (
-        MultiViterbiSync, _punctured_block_inputs_tracked)
+    """TRACK-mode fleet decode through the kernel (7/8 at 40 channels)
+    == the host ViterbiBank driven on the tracked block inputs."""
     rate, C = "7/8", 40
     cstln = make_dvbs2_constellation(Predef.QPSK, rate)
     t = vit.make_trellis(rate)
     nsamp = 1 << 14
     rng = np.random.default_rng(17)
-    b = MultiViterbiSync(cstln, rate, C, nsamp, 2.0, banked=True,
-                         interpret=True)
+    b = MultiViterbiSync(cstln, rate, C, nsamp, 2.0, interpret=True)
     b._want_track = True
     b.apply_pending_transition()
     assert b.track and b.plan_dec.nsyncs == 1
@@ -264,7 +211,7 @@ def test_rowsplit_track_decode_matches_bank():
     by, dsel, under = b.decode()
     assert not np.asarray(under).any()
 
-    cs, co = _punctured_block_inputs_tracked(
+    cs, co = _block_inputs_tracked(
         plan, b.maps, jnp.asarray(sym.astype(np.int32)),
         jnp.asarray(cost.astype(np.int32)),
         jnp.zeros(C, jnp.int32))
@@ -285,15 +232,14 @@ def test_rowsplit_track_decode_matches_bank():
 
 @pytest.mark.parametrize("rate,C", [("3/4", 3), ("7/8", 3)])
 def test_banked_fleet_decode_matches_xla(rate, C):
-    """viterbi_decode_banked == viterbi_decode_xla (both exact vs the
+    """viterbi_decode_kernel == viterbi_decode_xla (both exact vs the
     host bank) through the full fleet decode wrapper — bytes,
     discriminants and elections — plus a TRACK-mode transition."""
     cstln = make_dvbs2_constellation(Predef.QPSK, rate)
     nsamp = 1 << 14
     rng = np.random.default_rng(5)
-    a = MultiViterbiSync(cstln, rate, C, nsamp, 2.0, banked=False)
-    b = MultiViterbiSync(cstln, rate, C, nsamp, 2.0, banked=True,
-                         interpret=True)
+    a = MultiViterbiSync(cstln, rate, C, nsamp, 2.0)
+    b = MultiViterbiSync(cstln, rate, C, nsamp, 2.0, interpret=True)
     for it in range(3):
         n = a.plan.consumed + (a.plan.nshifts if it == 0 else 0)
         sym = rng.integers(0, 4, (n, C)).astype(np.uint8)
@@ -322,13 +268,11 @@ def test_banked_fleet_decode_matches_xla(rate, C):
 
 @pytest.mark.parametrize("rate", ["3/4", "7/8"])
 def test_tracked_block_inputs_match_gather(rate):
-    """TRACK-mode elected-only block inputs
-    (_punctured_block_inputs_tracked) == the all-replica stack gathered
-    at tsync, for every possible per-channel election."""
-    from leansdr_tpu.fec.viterbi_device import (
-        ViterbiPlan, _punctured_block_inputs,
-        _punctured_block_inputs_tracked, P_SUB)
-    from leansdr_tpu.fec.viterbi import make_trellis
+    """TRACK-mode elected-only block inputs (_block_inputs_tracked) ==
+    the all-replica stack gathered at tsync, for every possible
+    per-channel election."""
+    from leansdr_jax.fec.viterbi_device import ViterbiPlan
+    from leansdr_jax.fec.viterbi import make_trellis
     t = make_trellis(rate)
     ns = t.bits_out // 2
     M = 4
@@ -338,8 +282,7 @@ def test_tracked_block_inputs_match_gather(rate):
                        nsyncs=M * ns)
     track = ViterbiPlan(rate, C, plan.nsamp, ns, 1, plan.cap, nsyncs=1)
     cstln = make_dvbs2_constellation(Predef.QPSK, rate)
-    from leansdr_tpu.fec.viterbi_device import make_sync_maps
-    maps, _, _, _ = make_sync_maps(cstln, rate)
+    maps, _, _, _ = vit.make_sync_maps(cstln, rate)
     maps = tuple(tuple(int(v) for v in row) for row in maps)
     rng = np.random.default_rng(11)
     win_sym = jnp.asarray(
@@ -348,24 +291,24 @@ def test_tracked_block_inputs_match_gather(rate):
         -rng.integers(0, 50, (plan.needed, C), dtype=np.int64),
         jnp.int32)
     tsync = jnp.arange(C, dtype=jnp.int32)
-    cs_a, cost_a = _punctured_block_inputs(full, maps, win_sym, win_cost)
+    cs_a, cost_a = _block_inputs(full, maps, win_sym, win_cost)
     ref_cs = np.take_along_axis(np.asarray(cs_a),
                                 np.arange(C)[None, :, None], axis=2)[..., 0]
     ref_cost = np.take_along_axis(np.asarray(cost_a),
                                   np.arange(C)[None, :, None],
                                   axis=2)[..., 0]
-    cs, cost = _punctured_block_inputs_tracked(track, maps, win_sym,
+    cs, cost = _block_inputs_tracked(track, maps, win_sym,
                                                win_cost, tsync)
     assert np.array_equal(np.asarray(cs), ref_cs)
     assert np.array_equal(np.asarray(cost), ref_cost)
 
 
 def test_banked_fleet_e2e_decodes_ts():
-    """Real DVB-S 3/4 stimulus through MultiDvbsReceiver with the
-    banked kernel (interpret): payload-verified TS out."""
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx
-    from leansdr_tpu.pipelines.dvbs_rx import RxConfig
-    from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver
+    """Real DVB-S 3/4 stimulus through MultiDvbsReceiver with the ACS
+    kernel (interpret): payload-verified TS out."""
+    from leansdr_jax.pipelines import tsgen, dvbs_tx
+    from leansdr_jax.pipelines.dvbs_rx import RxConfig
+    from leansdr_jax.pipelines.multi_rx import MultiDvbsReceiver
 
     C, CH = 2, 1 << 15
     pkts = [tsgen.generate(60, start=777 * c) for c in range(C)]
@@ -375,10 +318,10 @@ def test_banked_fleet_e2e_decodes_ts():
         RxConfig(Fs=4e6, Fm=2e6, rate="3/4", fastlock=True,
                  float_scale=75.0, exact_lut=False, viterbi=True),
         C, chunk_samples=CH)
-    # Swap in the banked path (CPU default is XLA; interpret kernel).
+    # Swap in the kernel path (CPU default is XLA; interpret kernel).
     rx.deconv = type(rx.deconv)(rx.cstln, "3/4", C, CH, 2.0,
-                                banked=True, interpret=True)
-    assert rx.deconv.kind == "viterbi_banked"
+                                interpret=True)
+    assert rx.deconv.kind == "viterbi_acs"
     ra = rx.params.readahead + (len(rx.mf_taps) - 1
                                 if rx.mf_taps is not None else 0)
     n = (min(len(q) for q in iqs) - ra) // CH * CH

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Byte-domain backend microbenchmark: native C++ vs vectorized Python.
 
-Host-only (no TPU needed): feeds identical impaired DVB-S byte streams
+Host-only (no device needed): feeds identical impaired DVB-S byte streams
 (randomize -> RS encode -> interleave, with byte errors) through both
 backends at the fleet shape and reports ms/chunk and the speedup.
 
@@ -24,9 +24,9 @@ def main():
     nchan = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     npkt = int(sys.argv[2]) if len(sys.argv) > 2 else 500
 
-    from leansdr_tpu.pipelines import tsgen
-    from leansdr_tpu.fec import rs, interleave, prbs
-    from leansdr_tpu.pipelines.multi_rx import _ByteBackend
+    from leansdr_jax.pipelines import tsgen
+    from leansdr_jax.fec import rs, interleave, prbs
+    from leansdr_jax.pipelines.multi_rx import _ByteBackend
 
     rng = np.random.default_rng(0)
     streams = []
@@ -52,7 +52,7 @@ def main():
 
     res = {"nchan": nchan, "chunks": nchunks}
     try:
-        from leansdr_tpu.native import NativeByteBackend
+        from leansdr_jax.native import NativeByteBackend
         tn, pn = run(NativeByteBackend(nchan, True))
         res["native_ms_per_chunk"] = round(tn / nchunks * 1e3, 2)
         res["packets"] = pn

@@ -15,7 +15,7 @@ byte on stdout.
   one device batch (pipelines/scan_rx.py) in the lane slots a small
   fleet leaves idle, elects by decoded output, and hands off.
 
-Run on the TPU for ours (the point of the architecture); the reference
+Run on the GPU for ours (the point of the architecture); the reference
 binary runs on one host core, as it does in production.  JAX compile
 time is excluded by a warmup flag-free dry call when --warm is given
 (the persistent cache makes steady-state starts representative).
@@ -55,8 +55,8 @@ def build_reference():
 
 
 def make_capture(npackets, rate="3/4", interp=4, decim=1):
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx
-    from leansdr_tpu.util.iofmt import write_iq
+    from leansdr_jax.pipelines import tsgen, dvbs_tx
+    from leansdr_jax.util.iofmt import write_iq
     pkts = tsgen.generate(npackets)
     iq = dvbs_tx.modulate(pkts, dvbs_tx.TxConfig(rate=rate, interp=interp,
                                                  decim=decim))
@@ -159,9 +159,9 @@ def main_live(npackets, fs=6e6, sr=SR, cr=CR, cap_rate="3/4",
                           "value": round(dt_ref, 2) if dt_ref else None,
                           "grid": f"{sr} x {cr}"}), flush=True)
 
-        our_cmd = [sys.executable, "-m", "leansdr_tpu.apps.leansdrscan",
+        our_cmd = [sys.executable, "-m", "leansdr_jax.apps.leansdrscan",
                    "--device", "-t", "600",
-                   sys.executable, "-m", "leansdr_tpu.apps.leandvb",
+                   sys.executable, "-m", "leansdr_jax.apps.leandvb",
                    "--f32", "--float-scale", "75", "-f", fss,
                    "--sr", sr, "--cr", cr, "--anf", "0"]
         dt_dev, err = time_to_first_ts_live(our_cmd, capture, rate_bps)
@@ -222,9 +222,9 @@ def main():
                           "value": round(dt_ref, 2) if dt_ref else None,
                           "grid": f"{SR} x {CR}"}), flush=True)
 
-        our_cmd = [sys.executable, "-m", "leansdr_tpu.apps.leansdrscan",
+        our_cmd = [sys.executable, "-m", "leansdr_jax.apps.leansdrscan",
                    "--device", "--rewind", "-t", "600",
-                   sys.executable, "-m", "leansdr_tpu.apps.leandvb",
+                   sys.executable, "-m", "leansdr_jax.apps.leandvb",
                    "--f32", "--float-scale", "75", "-f", "6e6",
                    "--sr", SR, "--cr", CR, "--anf", "0"]
         dt_dev = time_to_first_ts(our_cmd, capture)

@@ -61,9 +61,9 @@ SERIES = {
 
 def run_point(ratio: str, snrtarget: float, opts: dict,
               npackets=3000, minpackets=1000, use_ref=False, seed=None):
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx, chansim
-    from leansdr_tpu.pipelines.dvbs_rx import DvbsReceiver, RxConfig
-    from leansdr_tpu.util.iofmt import write_iq, read_iq
+    from leansdr_jax.pipelines import tsgen, dvbs_tx, chansim
+    from leansdr_jax.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+    from leansdr_jax.util.iofmt import write_iq, read_iq
 
     symbrate = 1e6
     r = Fraction(ratio)
@@ -135,9 +135,9 @@ def run_qef_point(ratio: str, snrtarget: float, opts: dict,
     the DVB-S QEF criterion VBER <= 2e-4 with thousands of error
     events (leandvb_bench.gnuplot:20-21,40).  `segments` in opts routes
     the segmented receiver (threshold parity check)."""
-    from leansdr_tpu.pipelines import tsgen, dvbs_tx, chansim
-    from leansdr_tpu.pipelines.dvbs_rx import DvbsReceiver, RxConfig
-    from leansdr_tpu.util.iofmt import write_iq
+    from leansdr_jax.pipelines import tsgen, dvbs_tx, chansim
+    from leansdr_jax.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+    from leansdr_jax.util.iofmt import write_iq
 
     symbrate = 1e6
     r = Fraction(ratio)
@@ -201,7 +201,7 @@ def run_qef_point(ratio: str, snrtarget: float, opts: dict,
 
 
 def _run_ref_point(iq, samprate, symbrate, float_scale, opts, minpackets):
-    from leansdr_tpu.util.iofmt import write_iq
+    from leansdr_jax.util.iofmt import write_iq
     ref = Path(__file__).resolve().parent.parent / ".ref_build/src/apps"
     flags = []
     if opts.get("viterbi"):
@@ -267,7 +267,7 @@ def main():
         commit = subprocess.run(
             ["git", "rev-parse", "--short", "HEAD"],
             capture_output=True, text=True).stdout.strip()
-        platform = "ref_leandvb" if args.ref else "leansdr_tpu"
+        platform = "ref_leandvb" if args.ref else "leansdr_jax"
         if args.segments > 1:
             platform += f"-seg{args.segments}"
         sel = args.series or ["4.2sps-viterbi-rrc"]
@@ -300,7 +300,7 @@ def main():
             "VBERMIN VBERMAX"]
     commit = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                             capture_output=True, text=True).stdout.strip()
-    platform = "ref_leandvb" if args.ref else "leansdr_tpu"
+    platform = "ref_leandvb" if args.ref else "leansdr_jax"
     if args.segments > 1 and not args.ref:
         platform += f"-seg{args.segments}"
     seedtag = "" if args.seed is None else f" seed={args.seed}"
